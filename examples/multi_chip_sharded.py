@@ -4,8 +4,8 @@ along the line of sight (context-parallel analogue) with XLA-inserted
 collectives, channels fanned out over a second mesh axis, and epochs
 fanned across devices.
 
-Runs on real TPU slices or a virtual CPU mesh:
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu \
+Runs on the cards of one host or on a virtual CPU mesh:
+    JAX_PLATFORMS=cpu \
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/multi_chip_sharded.py
 """

@@ -14,7 +14,7 @@ small-field approximation fails:
    through the same differentiable w-stacked forward
    (`fit_visibilities(..., w_planes=...)`).
 
-Runs on CPU (float64) in a couple of minutes; no TPU required.
+Runs on CPU (float64) in a couple of minutes; no accelerator required.
 """
 import os
 import sys

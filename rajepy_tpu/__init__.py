@@ -1,4 +1,4 @@
-"""rajepy_tpu — a TPU-native radiative-transfer and synthetic-observation
+"""rajepy_tpu — a JAX radiative-transfer and synthetic-observation
 framework for ionised jets from young stellar objects.
 
 A ground-up JAX/XLA/Pallas rebuild with the capabilities of the reference
@@ -24,7 +24,8 @@ Package layout
 - ``utils``     logging, validation, misc helpers
 
 Float64 is enabled globally (required for the 1e-6 oracle-parity targets);
-pass ``dtype=jnp.float32`` to ``JetModel`` for maximum TPU throughput.
+``JetModel``'s default ``dtype='auto'`` computes in float32 on an
+accelerator (see :mod:`rajepy_tpu.ops.paths`).
 """
 import os as _os
 
@@ -32,19 +33,28 @@ from jax import config as _jax_config
 
 _jax_config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: compiles dominate cold starts (30-140 s
-# per distinct program through remote TPU compile services); cached
-# executables cut repeat-process startup roughly in half.  Respects an
-# explicit JAX_COMPILATION_CACHE_DIR.
-if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-    _cache_dir = _os.path.join(_os.path.expanduser("~"), ".cache",
-                               "rajepy_tpu", "jax")
+
+def compile_cache_dir():
+    """Where this package keeps JAX's persistent compilation cache: None
+    when ``JAX_COMPILATION_CACHE_DIR`` is set (JAX reads the variable
+    itself), else the fixed ``<checkout>/.jax_cache``.  The path is part
+    of the cache key, so it must not move between runs."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), ".jax_cache")
+
+
+# Persistent compilation cache: compiles dominate cold starts, and a
+# process that finds its programs cached skips them.
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
     try:
         _os.makedirs(_cache_dir, exist_ok=True)
         _jax_config.update("jax_compilation_cache_dir", _cache_dir)
         _jax_config.update("jax_persistent_cache_min_compile_time_secs",
                            1.0)
-    except OSError:  # read-only home etc. — run without the cache
+    except OSError:  # read-only checkout — run without the cache
         pass
 
 from . import constants as cnsts            # noqa: E402

@@ -17,7 +17,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="rajepy_tpu",
-        description="TPU-native radiative transfer and synthetic radio "
+        description="Radiative transfer and synthetic radio "
                     "observations of ionised YSO jets")
     parser.add_argument("model_param_file",
                         help="Full path to model parameter file", type=str)

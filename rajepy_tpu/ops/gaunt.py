@@ -95,7 +95,7 @@ def interp_bicubic(table, x0, y0, step, x, y):
 def _log_axes(freq, temp, z):
     # log-sum form, not log-of-ratio: the ratio's reverse-mode JVP squares
     # k_B*T (~1.9e-38), which sits at the edge of the float32 normal range
-    # and blows the gradient up to inf on the f32 (TPU-fitting) path
+    # and blows the gradient up to inf on the f32 fitting path
     log_t = jnp.log10(jnp.asarray(temp))
     logg2 = float(np.log10(z ** 2 * _RY_INF / cnsts.K_B)) - log_t
     logu = (float(np.log10(cnsts.H / cnsts.K_B)) +

@@ -15,7 +15,7 @@ Implements the Reynolds (1986) + disc-wind jet geometry of the reference
   lives in :mod:`rajepy_tpu.ops.hyp2f1` and here is evaluated as the combined
   Pfaff-transformed series, see ``_travel_time_integrand`` docstring)
 
-Design notes (TPU-first):
+Design notes:
  - every function takes/returns ``jnp`` arrays and traces to a single fused
    XLA computation; no data-dependent python control flow;
  - angles are accepted in degrees (like the reference API) but converted once,

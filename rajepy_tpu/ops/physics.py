@@ -327,33 +327,6 @@ _BB_PREFACTOR_CBRT = float((2.0 * cnsts.H_CGS / cnsts.C_CGS ** 2) **
                            (1.0 / 3.0))
 
 
-def _expm1_planck(x):
-    """expm1 for the Planck denominator, accurate on TPU backends.
-
-    XLA:TPU's f32 ``expm1`` carries up to 1.2e-4 relative error in the
-    x ~ 1e-3..0.5 band (measured on v5e; its ``exp`` floor is ~5.5e-6) —
-    a 7-term Taylor below 0.5 (truncation 1.9e-7) with native expm1
-    above pins the radio regime (h nu / k T << 1) at ~2e-7 and the
-    IR/optical regime at the backend exp floor.
-
-    f32 only: in float64 the Taylor truncation (x^8/8! ~ 1.6e-7 near
-    the switch) would DEGRADE the 1e-9-parity oracle path, and f64
-    expm1 needs no workaround."""
-    x = jnp.asarray(x)
-    if x.dtype != jnp.float32:
-        return jnp.expm1(x)
-    small = x < 0.5
-    xs = jnp.where(small, 0.0, x)
-    # clamp the Taylor lane too: x^8 overflows f32 to inf above ~6.5e4,
-    # and although where() discards that forward value, reverse-mode AD
-    # propagates 0 * inf = NaN through the discarded branch
-    xt = jnp.where(small, x, 0.0)
-    taylor = xt * (1.0 + xt * (0.5 + xt * ((1.0 / 6.0) + xt * (
-        (1.0 / 24.0) + xt * ((1.0 / 120.0) + xt * (
-            (1.0 / 720.0) + xt * (1.0 / 5040.0)))))))
-    return jnp.where(small, taylor, jnp.expm1(xs))
-
-
 def blackbody_nu(freq, temp):
     """Planck spectral radiance B_nu in cgs (erg s^-1 cm^-2 Hz^-1 sr^-1)
     (physics.py:561-574).
@@ -364,9 +337,9 @@ def blackbody_nu(freq, temp):
     as ((2h/c^2)^(1/3) nu)^3 with the cube-root constant behind an
     ``optimization_barrier`` (nothing can fold it back into the
     underflowing product).  This costs 3 multiplications of relative
-    error (~3 ulps) where the earlier log-space form, exp(ln(2h/c^2) +
-    3 ln nu), paid ~6e-5 of f32 exponent rounding (|exponent| ~ 100;
-    BASELINE.md "f32 accuracy budget").  expm1 keeps the Rayleigh-Jeans
+    error (~3 ulps) where a log-space form, exp(ln(2h/c^2) + 3 ln nu),
+    pays ~6e-5 of f32 exponent rounding (|exponent| ~ 100).  expm1 keeps
+    the Rayleigh-Jeans
     limit accurate where h nu / k T ~ 1e-5 would cancel in exp(x) - 1.
     """
     freq = jnp.asarray(freq)
@@ -379,7 +352,7 @@ def blackbody_nu(freq, temp):
         jnp.asarray(_BB_PREFACTOR_CBRT, freq.dtype))
     t = a * freq
     p1 = t * t * t
-    p2 = _expm1_planck(cnsts.H_CGS * freq / (cnsts.K_CGS * temp))
+    p2 = jnp.expm1(cnsts.H_CGS * freq / (cnsts.K_CGS * temp))
     return p1 / p2
 
 

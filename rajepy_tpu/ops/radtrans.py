@@ -4,7 +4,7 @@ Replaces the reference's per-channel Python loops over full-grid numpy
 algebra (classes.py:1353-1541 continuum, classes.py:1130-1351 RRL — SURVEY
 §3.2 hot loops B/C) with fused, channel-batched XLA programs.
 
-Key TPU-first restructuring for the continuum: the free-free opacity
+Key restructuring for the continuum: the free-free opacity
 
     tau(nu) = 0.018 T^-1.5 nu^-2 (n_e x)^2 ds g_ff          (classes.py:1395)
 
@@ -216,9 +216,15 @@ def tau_rrl_maps(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside,
 
 
 def tau_rrl_precompute(coeffs: RRLCoeffs, temp, n_es, vy, ds_cm, inside):
-    """Channel-independent per-cell factors of the RRL opacity, feeding the
-    fused Pallas cube kernel (ops.pallas_kernels.rrl_cube_pallas):
-    returns (amp, rest, scale, y_voigt, hkT) — see that kernel's docstring.
+    """Channel-independent per-cell factors of the RRL opacity, feeding
+    the compacted-tile RRL path (:func:`tau_rrl_maps_tiles`):
+
+        amp    = kappa_L prefactor x ds / (sigma_G sqrt(2 pi)): everything
+                 but the profile's Re[w] and the stimulated-emission factor
+        rest   = Doppler-shifted line centre per cell [Hz]
+        scale  = 1/(sigma_G sqrt(2)) per cell [1/Hz]
+        y_voigt= (fwhm_L/2) * scale per cell
+        hkT    = h/(k_B T) per cell [1/Hz]
     """
     safe_t = jnp.where(inside, temp, 1.0)
     safe_ne = jnp.where(inside, n_es, 0.0)
@@ -242,43 +248,40 @@ def tau_rrl_precompute(coeffs: RRLCoeffs, temp, n_es, vy, ds_cm, inside):
     return amp, rest, scale, y_voigt, hkT
 
 
-def tau_rrl_maps_fused(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm,
-                       inside, interpret: bool = False):
-    """Collapsed RRL optical-depth maps through the fused Pallas kernel —
-    per-cell inputs read from HBM once for the whole channel axis instead
-    of once per channel.  float32 path (Weideman N=16 — the f32
-    truncation floor; see ops.pallas_kernels)."""
-    from .pallas_kernels import rrl_cube_pallas
+def tau_rrl_tile_factors(coeffs: RRLCoeffs, freqs, temp_t, n_es_t, vy_t,
+                         ds_t, inside_t):
+    """float32 inputs of the RRL tile partials (ops.rrl_tiles) from
+    compacted field tiles: ``(freqs_off, amp, rest_off, scale, y_voigt,
+    hkT)``, with frequencies and line centres as offsets from nu0.
+
+    The factors are computed in float64 and only then cast: a float32
+    Doppler-shifted line centre quantises at ~1 kHz, which alone costs
+    ~1e-4 of the map maximum (2e-7 with this order).  The tiles are a
+    few per cent of the grid, so the float64 pass is cheap."""
+    f64 = jnp.float64
     amp, rest, scale, y_voigt, hkT = tau_rrl_precompute(
-        coeffs, temp, n_es, vy, ds_cm, inside)
+        coeffs, temp_t.astype(f64), n_es_t.astype(f64), vy_t.astype(f64),
+        ds_t.astype(f64), inside_t)
     f32 = jnp.float32
     nu0 = float(coeffs.nu0)
-    freqs_off = (jnp.asarray(freqs) - nu0).astype(f32)
-    rest_off = (rest - nu0).astype(f32)
-    return rrl_cube_pallas(freqs_off, amp.astype(f32), rest_off,
-                           scale.astype(f32), y_voigt.astype(f32),
-                           hkT.astype(f32), nu0=nu0, interpret=interpret)
+    return ((jnp.asarray(freqs) - nu0).astype(f32), amp.astype(f32),
+            (rest - nu0).astype(f32), scale.astype(f32),
+            y_voigt.astype(f32), hkT.astype(f32))
 
 
 def tau_rrl_maps_tiles(coeffs: RRLCoeffs, freqs, temp_t, n_es_t, vy_t,
-                       ds_t, inside_t, seg, nx: int, nz: int,
-                       interpret: bool = False):
-    """Collapsed RRL optical-depth maps from COMPACTED jet-occupied field
-    tiles (ops.pallas_kernels.gather_tiles): the channel-independent
-    opacity factors are evaluated only on the ~5% of the grid the jet
-    occupies, the Voigt kernel runs one tile per grid step with no
-    empty-block traffic, and the (n_chan, nx, nz) maps are reassembled
-    with a segment-sum over (x, z)-tile ids."""
-    from .pallas_kernels import rrl_tiles_pallas, segment_tile_maps
-    amp, rest, scale, y_voigt, hkT = tau_rrl_precompute(
-        coeffs, temp_t, n_es_t, vy_t, ds_t, inside_t)
-    f32 = jnp.float32
-    nu0 = float(coeffs.nu0)
-    freqs_off = (jnp.asarray(freqs) - nu0).astype(f32)
-    rest_off = (rest - nu0).astype(f32)
-    parts = rrl_tiles_pallas(freqs_off, amp.astype(f32), rest_off,
-                             scale.astype(f32), y_voigt.astype(f32),
-                             hkT.astype(f32), nu0=nu0, interpret=interpret)
+                       ds_t, inside_t, seg, nx: int, nz: int):
+    """Collapsed RRL optical-depth maps (n_chan, nx, nz) from COMPACTED
+    jet-occupied field tiles (ops.tiles.gather_tiles): the
+    channel-independent opacity factors are evaluated only on the few
+    per cent of the grid the jet occupies, the Voigt sums run per tile
+    (ops.rrl_tiles), and the maps are reassembled with a segment-sum over
+    (x, z)-tile ids."""
+    from .rrl_tiles import rrl_tile_partials
+    from .tiles import segment_tile_maps
+    parts = rrl_tile_partials(
+        *tau_rrl_tile_factors(coeffs, freqs, temp_t, n_es_t, vy_t, ds_t,
+                              inside_t), nu0=float(coeffs.nu0))
     return segment_tile_maps(parts, seg, nx, nz)
 
 

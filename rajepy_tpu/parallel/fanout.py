@@ -18,10 +18,11 @@ then writes each run's FITS products exactly as the sequential path does
 (`Pipeline.execute` consults the fanned cache before calling the
 single-device model methods).
 
-The per-run maths is the model's exact XLA formulation (the non-fused
-branch of ``JetModel._epoch_base_map`` / ``_rrl_kernel``), so fanned
-products are bit-compatible with the sequential CPU path and match the
-fused single-chip TPU path to float32 tolerance.
+The per-run maths is the model's full-cube XLA formulation (the
+non-tiled branch of ``JetModel._epoch_base_map`` / ``_rrl_kernel``), so
+fanned products are bit-compatible with the sequential float64 path and
+match the single-device compacted-tile float32 path to float32
+tolerance.
 """
 from __future__ import annotations
 

@@ -1,14 +1,14 @@
 """Device-mesh sharding of the radiative-transfer step.
 
 The reference is strictly single-process (SURVEY §2.9: no parallelism of
-any kind; README.md:379 lists it as future work).  The TPU-native
+any kind; README.md:379 lists it as future work).  The device-mesh
 equivalents built here:
 
 * **LOS (sequence/context-parallel analogue)** — the voxel grid is sharded
   along the line-of-sight axis (y); every RT product is an associative
   masked reduction along that axis (SURVEY §5.7), so under ``jit`` with
   `NamedSharding` annotations XLA partitions the elementwise work and
-  inserts the `psum`/reduce-scatter collectives over ICI automatically.
+  inserts the `psum`/reduce-scatter collectives automatically.
 * **Channel data-parallelism** — frequency channels are independent;
   sharding the channel axis fans the per-channel maps out across devices
   with no communication at all.
@@ -17,8 +17,9 @@ equivalents built here:
   evaluates a whole group of pipeline runs in one sharded program, and
   `Pipeline.execute` uses it automatically on multi-device backends.
 
-Everything works on any `jax.sharding.Mesh` — real TPU slices or the
-virtual `xla_force_host_platform_device_count` CPU mesh used in tests.
+Everything works on any `jax.sharding.Mesh` — the cards of one host or
+the virtual `xla_force_host_platform_device_count` CPU mesh used in
+tests.
 """
 from __future__ import annotations
 
@@ -118,8 +119,7 @@ def _fill_program(mesh: Mesh, static_params, rb_frac, nx, ny, nz, csize,
     share the dispatch cache only for the same function object) — a
     dryrun calling ``sharded_static_fields`` then ``fill_memory_stats``
     at the same shape previously compiled the identical SPMD program
-    twice, and a standalone large-shape fill compile is the documented
-    remote-compile wedge risk (CLAUDE.md r3s6)."""
+    twice."""
     from ..models import grid as mgrid
     from ..models.fields import StaticFields, compute_static_fields
     if dtype is None:
@@ -158,7 +158,7 @@ def fill_memory_stats(mesh: Mesh, static_params, rb_frac: float,
     Returns ``{'per_device_bytes', 'full_output_bytes', 'n_los'}`` or
     ``None`` when the backend doesn't expose
     :meth:`~jax.stages.Compiled.memory_analysis` (assert availability in
-    tests — the CPU and TPU backends both support it).
+    tests — the CPU backend supports it).
     """
     from ..models.fields import StaticFields  # noqa: F401 — doc link
     fill, coords = _fill_program(mesh, static_params, rb_frac, nx, ny,
@@ -320,9 +320,9 @@ def sharded_clean_cube(mesh: Mesh, uvw_m, freqs, vis_re, vis_im, weights,
     (restored, dirty), channel-sharded (n_chan, n_pix, n_pix).
 
     The channel axis is dispatched in chunks of 256 channels PER DEVICE
-    from the host: chunking inside the jitted shard_map would just
-    unroll into one long device program, which is exactly what crashes
-    the remote TPU worker (see imaging.clean_cube).
+    from the host, which bounds peak device memory: chunking inside the
+    jitted shard_map would just unroll into one long device program
+    (see imaging.clean_cube).
     """
     from ..synthobs import imaging
 
@@ -362,7 +362,6 @@ def sharded_clean_cube(mesh: Mesh, uvw_m, freqs, vis_re, vis_im, weights,
     def dispatch(fr, vr, vi, n_valid, pad_to):
         # pad with duplicated last frequency / zero visibilities so every
         # dispatch in a chunked cube reuses ONE compiled program shape
-        # (remote TPU compiles cost 30-140 s per distinct shape)
         pad = pad_to - n_valid
         if pad:
             fr = jnp.concatenate([fr, jnp.broadcast_to(fr[-1:], (pad,))])
@@ -390,7 +389,7 @@ def sharded_epoch_base_map_tiles(mesh: Mesh, base_t, tss_t, seg, t,
                                  spec_r, spec_b, nx: int, nz: int,
                                  pack_offset: float = 1.0):
     """Tile-parallel LOS-collapsed sum_y base * chi(t - ts)^2 over
-    COMPACTED jet-occupied tiles (ops.pallas_kernels.gather_tiles).
+    COMPACTED jet-occupied tiles (ops.tiles.gather_tiles).
 
     The production single-chip epoch path compacts the grid to its
     jet-occupied tiles; this shards that same tile axis across ALL mesh
@@ -427,8 +426,7 @@ def sharded_epoch_base_map_tiles(mesh: Mesh, base_t, tss_t, seg, t,
         parts = jnp.sum(base_l * chi * chi, axis=2)
         m = jax.ops.segment_sum(parts, seg_l, num_segments=n_xt * n_zt)
         m = jax.lax.psum(m, axis_name=axes)
-        # reassemble inside the program: eager post-ops would each cost a
-        # host round trip per call on remote device backends
+        # reassemble inside the program: one dispatch, no eager post-ops
         m = m.reshape(n_xt, n_zt, bx, bz).transpose(0, 2, 1, 3)
         return m.reshape(n_xt * bx, n_zt * bz)[:nx, :nz]
 

@@ -98,7 +98,7 @@ class TestForwardParity:
 
 class TestFloat32Path:
     def test_f32_forward_and_grad_match_f64(self, model_params):
-        # the TPU-native fitting precision: forward within f32 eps of the
+        # the accelerator fitting precision: forward within f32 eps of the
         # f64 oracle, gradients finite and matching (the gaunt log-sum
         # form guards against the k_B*T ~ 1e-19 JVP underflow)
         jm = JetModel(_small(model_params))

@@ -355,21 +355,29 @@ class TestMisc:
                                 axis3_type='y', axis4=0, axis4_type='freq')
         np.testing.assert_array_equal(out, np.transpose(a, (0, 2, 3, 1)))
 
-    def test_on_host_device_routes_eager_ops_to_cpu(self):
-        """on_host_device evaluates eager jnp ops on the host CPU
-        backend (no remote round trips) with identical values — the
-        per-run scalar-physics path in synthobs' imfit estimates."""
+    def test_compile_cache_under_checkout(self, monkeypatch):
+        """Without JAX_COMPILATION_CACHE_DIR the persistent compile cache
+        lives at the fixed <checkout>/.jax_cache (git-ignored), and the
+        package pointed JAX at it on import."""
         import jax
-        import jax.numpy as jnp
-        from rajepy_tpu.ops import physics as mphys
-        ref = float(mphys.tau_r(100., 10., 2., 1e9, 1., 1e4, 6e9,
-                                60., 1., -2., 0., 0., 30.))
-        with misc.on_host_device():
-            x = jnp.asarray(2.0) * 3.0
-            got = float(mphys.tau_r(100., 10., 2., 1e9, 1., 1e4, 6e9,
-                                    60., 1., -2., 0., 0., 30.))
-            assert next(iter(x.devices())).platform == 'cpu'
-        assert got == pytest.approx(ref, rel=1e-12)
+        import rajepy_tpu
+        env_at_import = os.environ.get('JAX_COMPILATION_CACHE_DIR')
+        monkeypatch.delenv('JAX_COMPILATION_CACHE_DIR', raising=False)
+        checkout = os.path.dirname(os.path.dirname(
+            os.path.abspath(rajepy_tpu.__file__)))
+        want = os.path.join(checkout, '.jax_cache')
+        assert rajepy_tpu.compile_cache_dir() == want
+        if not env_at_import:
+            assert jax.config.jax_compilation_cache_dir == want
+        with open(os.path.join(checkout, '.gitignore')) as f:
+            assert '.jax_cache/' in f.read().split()
+
+    def test_compile_cache_env_var_honoured(self, monkeypatch, tmp_path):
+        """An explicit JAX_COMPILATION_CACHE_DIR wins: the package sets no
+        cache directory of its own."""
+        import rajepy_tpu
+        monkeypatch.setenv('JAX_COMPILATION_CACHE_DIR', str(tmp_path))
+        assert rajepy_tpu.compile_cache_dir() is None
 
     def test_home_relativise_is_prefix_anchored(self):
         """Pipeline save/load '~' substitution must only touch a home
@@ -647,9 +655,9 @@ class TestReviewRegressionsR3S6:
 
 
 class TestStageTimeSplit:
-    """bench.py's pipeline metric splits device-compute from transfer/IO
-    seconds via the KernelTimer stage registry (utils.profiling;
-    BASELINE.md pipeline metric, r4 review item 5)."""
+    """The pipeline's stage registry (utils.profiling) splits
+    device-compute from transfer/IO seconds for bench.py and
+    chip_smoke.py."""
 
     def test_registry_and_split(self):
         from rajepy_tpu.utils import profiling

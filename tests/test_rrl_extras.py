@@ -176,9 +176,8 @@ class TestNonLTEMode:
         assert np.isfinite(np.nan_to_num(tau)).all()
 
     def test_characteristic_conditions_memoised_per_time(self, jm):
-        """The EM-weighted conditions are a device reduction (~30-60 ms
-        round trip on remote backends) hit by every departure entry
-        point — repeated calls at one model time must reuse the cached
+        """The EM-weighted conditions are a device reduction and host
+        pull hit by every departure entry point — repeated calls at one model time must reuse the cached
         pair, and a time change must recompute (r5 review fix)."""
         t_orig = jm.time
         try:

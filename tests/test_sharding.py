@@ -278,7 +278,7 @@ class TestShardedRT:
         across all devices) vs the full-grid chi^2 LOS sum."""
         from rajepy_tpu import JetModel
         from rajepy_tpu.models import ejection as ej
-        from rajepy_tpu.ops import pallas_kernels as pk
+        from rajepy_tpu.ops import tiles
         import copy
         p = copy.deepcopy(model_params)
         p['grid'].update(n_x=16, n_y=32, n_z=16, l_z=None)
@@ -286,11 +286,11 @@ class TestShardedRT:
         f = jm._ensure_fields()
         st = jm._rt_static()
         tile = dict(block_x=8, block_z=128, y_chunk=16)
-        ids, seg = pk.active_tiles(f.inside, **tile)
+        ids, seg = tiles.active_tiles(f.inside, **tile)
         assert ids.size > 0
         ids_d = jnp.asarray(ids)
-        base_t = pk.gather_tiles(st.a, ids_d, **tile)
-        tss_t = pk.gather_tiles(st.ts_signed, ids_d, fill=1.0, **tile)
+        base_t = tiles.gather_tiles(st.a, ids_d, **tile)
+        tss_t = tiles.gather_tiles(st.ts_signed, ids_d, fill=1.0, **tile)
 
         mesh = sharding.make_mesh(n_los=4, n_chan=2)
         t_now = 1.1 * 31536000.0
