@@ -259,11 +259,9 @@ def emergent_bench(jm, nchan=16):
     """Multi-channel emergent ordered scan over the compacted tiles
     (beyond-reference mode)."""
     import jax.numpy as jnp
-    jm.emergent_intensity_ff(np.geomspace(3e8, 3e11, nchan))  # warm-up
     freqs = jnp.geomspace(3e8, 3e11, nchan, dtype=jm._dtype)
-    tl = jm._emergent_tiles()
-    fn = jm._jit_cache[('emergent_ff_tiles', jm._burst_tuple(), tl[7])]
-    dt = _timed(lambda: fn(*tl[:7], jm.time, freqs))
+    fn, args = jm._emergent_program(jm._tiled())
+    dt = _timed(lambda: fn(*args, jm.time, freqs))
     return jm.nx * jm.ny * jm.nz * nchan / dt, dt
 
 

@@ -55,6 +55,14 @@ EMERGENT_TOL = 1e-5
 RRL_TOL = 1e-4              # Weideman-16's f32 floor plus LOS summation
 DEGRID_TOL = 1e-5           # of total flux: f32 KB degrid vs f64 DFT
 MULTI_RTOL = 1e-5           # fanned vs sequential products
+# The CLEAN cube is not continuous in its input: a last-bit change in a
+# dirty channel can move one peak pick or one stop decision.  The GPU's
+# float32 scatter-adds (tile segment sums, gridding) do not add in a
+# fixed order, so the sequential path need not reproduce its own CLEAN
+# cube bit for bit.  Fanned against sequential is held to this multiple
+# of the sequential path's repeat-to-repeat difference, and to
+# MULTI_RTOL when the repeat is exact.
+CLEAN_REPEAT_FACTOR = 10.0
 
 
 def log(msg: str) -> None:
@@ -106,21 +114,42 @@ def check_device(n_cards: int = 1):
 # --------------------------------------------------------------------- #
 # helpers
 # --------------------------------------------------------------------- #
-def timed(fn, *args, n_rep: int = 5):
-    """(result, median seconds per call) of a jitted callable, warm."""
+def timed(fn, *args, n_rep: int = 5, min_rep_s: float = 0.02):
+    """(result, seconds per call) of a jitted callable, warm.  Each of
+    ``n_rep`` repetitions dispatches enough back-to-back calls to last
+    about ``min_rep_s`` before it waits once, so a sub-millisecond program
+    is not timed mostly by the dispatch and wait latency.  The seconds
+    are ``{'median', 'min', 'max'}`` over the repetitions."""
     import jax
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
     out = jax.block_until_ready(fn(*args))
+    inner = max(1, int(min_rep_s / max(time.perf_counter() - t0, 1e-6)))
     times = []
     for _ in range(n_rep):
         t0 = time.perf_counter()
-        out = jax.block_until_ready(fn(*args))
-        times.append(time.perf_counter() - t0)
-    return out, float(np.median(times))
+        for _ in range(inner):
+            out = fn(*args)
+        jax.block_until_ready(out)
+        times.append((time.perf_counter() - t0) / inner)
+    return out, dict(median=float(np.median(times)), min=min(times),
+                     max=max(times))
+
+
+def fmt_ms(s: dict) -> str:
+    """A ``timed`` reading in ms: median [min-max]."""
+    return (f"{s['median'] * 1e3:.3f} ms [{s['min'] * 1e3:.3f}-"
+            f"{s['max'] * 1e3:.3f}]")
 
 
 def map_err(got, want) -> float:
     """Max over the leading (channel) axis of max|got - want| / max|want|
     per map; 2-D inputs count as one map."""
+    return float(max(map_errs(got, want)))
+
+
+def map_errs(got, want) -> list:
+    """max|got - want| / max|want| of each map along the leading axis."""
     got = np.nan_to_num(np.asarray(got, np.float64))
     want = np.nan_to_num(np.asarray(want, np.float64))
     if got.shape != want.shape:
@@ -132,15 +161,15 @@ def map_err(got, want) -> float:
         peak = np.max(np.abs(w))
         if peak == 0.0:
             raise AssertionError("reference map is all zero")
-        errs.append(np.max(np.abs(g - w)) / peak)
-    return float(max(errs))
+        errs.append(float(np.max(np.abs(g - w)) / peak))
+    return errs
 
 
 def gate(name: str, err: float, tol: float) -> None:
     ok = err <= tol
-    log(f"  {name}: err {err:.3e} (gate {tol:.0e}) {'ok' if ok else 'FAIL'}")
+    log(f"  {name}: err {err:.3e} (gate {tol:.3g}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: error {err:.3e} above {tol:.0e}")
+        raise AssertionError(f"{name}: error {err:.3e} above {tol:.3g}")
 
 
 def model_params(n=None):
@@ -204,17 +233,17 @@ def _chi2_f64(jm, f, t):
 # --------------------------------------------------------------------- #
 # phase 2: kernels and tile forms at the flagship widths
 # --------------------------------------------------------------------- #
-def rrl_check(jm, freqs, interpret: bool = False, n_rep: int = 3):
-    """The RRL opacity maps from the model's compacted tiles through the
-    Triton kernel and through the XLA tile form, each timed, and both
-    against float64 rt.tau_rrl_maps on the same cells."""
+def rrl_check(jm, freqs, interpret: bool = False, n_rep: int = 5):
+    """The model's RRL opacity maps over its compacted tiles with the
+    per-tile Voigt sums from the Triton kernel and from the XLA tile
+    form, each timed, and both against float64 rt.tau_rrl_maps on the
+    same cells."""
     import functools
     import jax
     import jax.numpy as jnp
     from rajepy_tpu.ops import radtrans as rt, tiles
     from rajepy_tpu.ops.rrl_tiles import rrl_tiles_pallas, rrl_tiles_xla
     coeffs = rt.RRLCoeffs('H58a')
-    nu0 = float(coeffs.nu0)
     tl = jm._rrl_tiles()
     bursts, off = jm._burst_tuple(), jm._ts_pack_offset
     nx, nz = jm.nx, jm.nz
@@ -222,14 +251,10 @@ def rrl_check(jm, freqs, interpret: bool = False, n_rep: int = 3):
     freqs = jnp.asarray(freqs, jnp.float64)
 
     def product(partials):
-        def fn(tl, t, freqs):
-            temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = tl
-            n_es_t = ndxi_t * tiles.burst_factor(tss_t, t, bursts, off)
-            fac = rt.tau_rrl_tile_factors(coeffs, freqs, temp_t, n_es_t,
-                                          vy_t, ds_t, inside_t)
-            return tiles.segment_tile_maps(partials(*fac, nu0=nu0), seg,
-                                           nx, nz)
-        return jax.jit(fn)
+        # the model's own tile program; only the Voigt sums vary
+        tau_maps = jm._tau_rrl_dispatch(coeffs, True, jm.csize,
+                                        partials=partials)
+        return jax.jit(lambda tl, t, freqs: tau_maps(None, tl, t, freqs))
 
     @jax.jit
     def reference(tl, t, freqs):
@@ -254,7 +279,7 @@ def rrl_check(jm, freqs, interpret: bool = False, n_rep: int = 3):
                 xla_err=map_err(got_x, want))
 
 
-def epoch_check(jm, n_rep: int = 10):
+def epoch_check(jm, n_rep: int = 15):
     """Both collapsed epoch maps (opacity base, EM base) through the
     compacted-tile XLA form and the full-cube XLA form, each timed, and
     both against a float64 full-cube evaluation of the same inputs."""
@@ -280,30 +305,22 @@ def epoch_check(jm, n_rep: int = 10):
                 tiles_err=max(map_err(g, w) for g, w in zip(got_t, want)),
                 full_err=max(map_err(g, w) for g, w in zip(got_f, want)),
                 stream_bytes=stream_bytes,
-                hbm_share=stream_bytes / t_tiles / HBM_BYTES_PER_S)
+                hbm_share={k: stream_bytes / s / HBM_BYTES_PER_S
+                           for k, s in t_tiles.items()})
 
 
 def emergent_check(jm, freqs, n_rep: int = 5):
-    """The emergent scan through the compacted-tile XLA form and the
-    full-cube XLA form, each timed, both against the float64 host oracle
+    """The model's emergent scan program over the compacted tiles and
+    over the full cube, each timed, both against the float64 host oracle
     of the same inputs."""
     import jax
     import jax.numpy as jnp
     freqs = np.asarray(freqs, np.float64)
     fr = jnp.asarray(freqs, jm._dtype)
-    got_t = jm.emergent_intensity_ff(freqs)            # traces, caches
-    tl = jm._emergent_tiles()
-    key = ('emergent_ff_tiles', jm._burst_tuple(), tl[7])
-    _, t_tiles = timed(jm._jit_cache[key], *tl[:7], jm.time, fr,
-                       n_rep=n_rep)
-    jm._tiled = lambda: False          # this instance: full-cube form
-    try:
-        got_f = jm.emergent_intensity_ff(freqs)
-        f = jm._ensure_fields()
-        _, t_full = timed(jm._jit_cache['emergent_ff'], f,
-                          jm._rt_static().a, jm.time, fr, n_rep=n_rep)
-    finally:
-        del jm._tiled
+    fn, args = jm._emergent_program(True)
+    got_t, t_tiles = timed(fn, *args, jm.time, fr, n_rep=n_rep)
+    fn, args = jm._emergent_program(False)
+    got_f, t_full = timed(fn, *args, jm.time, fr, n_rep=n_rep)
     f = jm._ensure_fields()
     st = jm._rt_static()
     dbase = jax.jit(lambda a, f, t: a.astype(jnp.float64) *
@@ -347,24 +364,24 @@ def phase_kernels(jm):
                           f"{RRL_WIDE_BW:.0e} Hz",
                           line_freqs(RRL_WIDE_NCHAN, RRL_WIDE_BW))):
         r = rrl_check(jm, freqs)
-        log(f"  rrl_tiles, {label}: triton kernel {r['kernel_s'] * 1e3:.3f}"
-            f" ms, xla tile form {r['xla_s'] * 1e3:.3f} ms "
-            f"(kernel/xla {r['kernel_s'] / r['xla_s']:.3f})")
+        log(f"  rrl_tiles, {label}: triton kernel {fmt_ms(r['kernel_s'])},"
+            f" xla tile form {fmt_ms(r['xla_s'])} (kernel/xla medians "
+            f"{r['kernel_s']['median'] / r['xla_s']['median']:.3f})")
         gate(f"rrl triton kernel ({label}) vs f64", r['kernel_err'],
              RRL_TOL)
         gate(f"rrl xla tile form ({label}) vs f64", r['xla_err'], RRL_TOL)
     e = epoch_check(jm)
-    log(f"  epoch maps (a + em): xla tile form {e['tiles_s'] * 1e3:.3f} ms,"
-        f" xla full cube {e['full_s'] * 1e3:.3f} ms; tile streams "
-        f"{e['stream_bytes'] / 1e6:.1f} MB -> {e['hbm_share']:.3f} of "
-        "3.35 TB/s")
+    share = e['hbm_share']
+    log(f"  epoch maps (a + em): xla tile form {fmt_ms(e['tiles_s'])}, "
+        f"xla full cube {fmt_ms(e['full_s'])}; tile streams "
+        f"{e['stream_bytes'] / 1e6:.1f} MB -> {share['median']:.3f} "
+        f"[{share['max']:.3f}-{share['min']:.3f}] of 3.35 TB/s")
     gate("epoch maps, tile form vs f64", e['tiles_err'], CONTINUUM_TOL)
     gate("epoch maps, full cube vs f64", e['full_err'], CONTINUUM_TOL)
     freqs = np.geomspace(3e8, 3e11, NCHAN)
     m = emergent_check(jm, freqs)
     log(f"  emergent scan, {NCHAN} channels: xla tile form "
-        f"{m['tiles_s'] * 1e3:.3f} ms, xla full cube "
-        f"{m['full_s'] * 1e3:.3f} ms")
+        f"{fmt_ms(m['tiles_s'])}, xla full cube {fmt_ms(m['full_s'])}")
     gate("emergent, tile form vs f64 oracle", m['tiles_err'], EMERGENT_TOL)
     gate("emergent, full cube vs f64 oracle", m['full_err'], EMERGENT_TOL)
     from rajepy_tpu import constants as cnsts
@@ -498,45 +515,81 @@ def phase_pipeline() -> None:
 
 
 # --------------------------------------------------------------------- #
-# four cards: run fan-out + channel-sharded CLEAN vs sequential
+# four cards: run fan-out vs sequential
 # --------------------------------------------------------------------- #
-def phase_multi(jax) -> None:
-    """The bundled campaign with the run fan-out and the channel-sharded
-    CLEAN, and again sequentially; the RT products and the RRL dirty and
-    CLEAN cubes are compared product by product, each gated at
-    MULTI_RTOL of its map's maximum."""
+def compare_campaigns(a, b) -> dict:
+    """Per product, the map errors of campaign ``a`` against ``b`` over
+    all their runs' maps: every run's RT products and noisy
+    visibilities (each channel one map), and the RRL runs' dirty and
+    CLEAN cubes."""
     from rajepy_tpu.io.fits import read_fits
+    errs = {}
+    for ra, rb in zip(a.runs, b.runs):
+        key = 'vis' if ra.obs_type == 'continuum' else 'rrl vis'
+        vis = []
+        for r in (ra, rb):
+            with np.load(r.products['ms_noisy']) as f:
+                vis.append(np.stack([f['vis_re'], f['vis_im']], axis=1))
+        errs.setdefault(key, []).extend(map_errs(*vis))
+        names = ['fits_em', 'fits_tau', 'fits_flux']
+        if ra.obs_type != 'continuum':
+            names += ['dirty', 'clean_image']
+        for name in names:
+            x = read_fits(fits_products(ra)[name])[0]
+            y = read_fits(fits_products(rb)[name])[0]
+            key = name if ra.obs_type == 'continuum' else f"rrl {name}"
+            errs.setdefault(key, []).extend(map_errs(
+                x.reshape(-1, *x.shape[-2:]), y.reshape(-1, *y.shape[-2:])))
+    return errs
+
+
+def multi_gates(fanned: dict, repeat: dict) -> None:
+    """Gate fanned-vs-sequential product errors (``compare_campaigns``):
+    MULTI_RTOL for every product but the CLEAN cube, which is held to
+    CLEAN_REPEAT_FACTOR times the sequential repeat's own difference
+    (``repeat``)."""
+    worst = {k: max(v) for k, v in fanned.items()}
+    spread = {k: max(v) for k, v in repeat.items()}
+    for key in fanned:
+        above = [sum(e > MULTI_RTOL for e in d[key])
+                 for d in (fanned, repeat)]
+        log(f"  {key}: fanned vs sequential {worst[key]:.3e} "
+            f"({above[0]} of {len(fanned[key])} maps above "
+            f"{MULTI_RTOL:.0e}); sequential repeat {spread[key]:.3e} "
+            f"({above[1]} above)")
+    for key, err in worst.items():
+        tol = MULTI_RTOL
+        if key == 'rrl clean_image':
+            tol = max(tol, CLEAN_REPEAT_FACTOR * spread[key])
+        gate(f"fanned vs sequential {key}", err, tol)
+
+
+def phase_multi(jax) -> None:
+    """The bundled campaign with the run fan-out (the default on more
+    than one device), then twice sequentially; the products are compared
+    one by one (compare_campaigns, multi_gates)."""
     dcy = tempfile.mkdtemp(prefix='chip_smoke_multi_')
     try:
         fan, wall_f, _ = run_campaign(os.path.join(dcy, 'fan'),
                                       save_dirty=True)
-        log(f"  fanned campaign (fan-out + channel-sharded CLEAN): "
-            f"{wall_f:.1f} s")
+        log(f"  fanned campaign: {wall_f:.1f} s")
         if not any('Fanned' in str(e) for e in fan.log.entries.values()):
             raise AssertionError("the continuum runs did not fan out")
         for d in jax.devices():
             stats = d.memory_stats() or {}
             log(f"  {d}: peak_bytes_in_use "
                 f"{stats.get('peak_bytes_in_use', 0) / 1e9:.2f} GB")
-        seq, wall_s, _ = run_campaign(os.path.join(dcy, 'seq'),
-                                      device_fanout=False, save_dirty=True)
-        log(f"  sequential campaign: {wall_s:.1f} s")
-        check_campaign(fan)
-        check_campaign(seq)
-        worst = {}
-        for rf, rs in zip(fan.runs, seq.runs):
-            names = ['fits_em', 'fits_tau', 'fits_flux']
-            if rf.obs_type != 'continuum':
-                names += ['dirty', 'clean_image']
-            for name in names:
-                a = read_fits(fits_products(rf)[name])[0]
-                b = read_fits(fits_products(rs)[name])[0]
-                key = name if rf.obs_type == 'continuum' else f"rrl {name}"
-                worst[key] = max(worst.get(key, 0.0), map_err(
-                    a.reshape(-1, *a.shape[-2:]),
-                    b.reshape(-1, *b.shape[-2:])))
-        for key, err in worst.items():
-            gate(f"fanned vs sequential {key}", err, MULTI_RTOL)
+        seq = []
+        for k in range(2):
+            p, wall_s, _ = run_campaign(os.path.join(dcy, f'seq{k}'),
+                                        device_fanout=False,
+                                        save_dirty=True)
+            log(f"  sequential campaign {k + 1}: {wall_s:.1f} s")
+            seq.append(p)
+        for p in (fan, *seq):
+            check_campaign(p)
+        multi_gates(compare_campaigns(fan, seq[0]),
+                    compare_campaigns(seq[1], seq[0]))
     finally:
         shutil.rmtree(dcy, ignore_errors=True)
 
@@ -544,8 +597,8 @@ def phase_multi(jax) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--multi', action='store_true',
-                    help='four cards: run fan-out and channel-sharded '
-                         'CLEAN against the sequential path')
+                    help='four cards: the run fan-out against the '
+                         'sequential path')
     args = ap.parse_args(argv)
     if not args.multi:
         restrict_to_first_card()

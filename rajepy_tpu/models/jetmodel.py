@@ -1274,12 +1274,15 @@ class JetModel:
             return em, tau_l, fluxes
         return np.asarray(em), np.asarray(tau_l), np.asarray(fluxes)
 
-    def _tau_rrl_dispatch(self, coeffs, use_tiles: bool, csize: float):
+    def _tau_rrl_dispatch(self, coeffs, use_tiles: bool, csize: float,
+                          partials=None):
         """The RRL line-opacity dispatch shared by _rrl_kernel and
         rrl_rt_products: compacted jet-occupied tiles, or the XLA channel
         map over the full cube.  Returns ``tau_maps(f, tl, t, freqs)`` for
         use inside a jitted kernel (one definition — a fix in the
-        dispatch must not be applied twice)."""
+        dispatch must not be applied twice).  ``partials`` overrides the
+        per-tile Voigt sums (rt.tau_rrl_maps_tiles); the default is the
+        platform's choice."""
         def tau_maps(f, tl, t, freqs):
             if use_tiles:
                 temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = tl
@@ -1288,7 +1291,7 @@ class JetModel:
                     getattr(self, '_ts_pack_offset', 1.0))
                 return rt.tau_rrl_maps_tiles(
                     coeffs, freqs, temp_t, n_es_t, vy_t, ds_t,
-                    inside_t, seg, self._nx, self._nz)
+                    inside_t, seg, self._nx, self._nz, partials=partials)
             n_es = self._nd_chi(f, t) * f.xi
             ds = rt.path_length_cm(f.ff, f.area, csize)
             return rt.tau_rrl_maps(coeffs, freqs, f.temp, n_es, f.vy,
@@ -1543,12 +1546,19 @@ class JetModel:
         sum S_i e^-tau (1-e^-dtau) along the LOS (BASELINE north-star), in
         W m^-2 Hz^-1 sr^-1.  Reduces to the reference's slab form for an
         isothermal jet."""
-        f = self._ensure_fields()
         scalar = np.isscalar(freq)
         freqs = jnp.atleast_1d(jnp.asarray(freq, dtype=self._dtype))
+        fn, args = self._emergent_program(self._tiled())
+        ints = np.asarray(fn(*args, self.time, freqs))
+        return ints[0] if scalar else ints
+
+    def _emergent_program(self, tiled: bool):
+        """``(fn, args)`` of the emergent scan, called as
+        ``fn(*args, t, freqs)``: the ordered scan over the compacted
+        jet-occupied tiles, or the XLA full-cube form."""
         t_0, reyn, csize, _ = self._rt_constants()
 
-        if self._tiled():
+        if tiled:
             temp_t, a_t, tss_t, seg, jt, it, kt, n_seg, n_yt, n_xt, n_zt = \
                 self._emergent_tiles()
             bursts = self._burst_tuple()
@@ -1573,10 +1583,8 @@ class JetModel:
                     return inten * 1e-7 * 1e4
                 return kernel
 
-            ints = np.asarray(self._jitted(
-                ('emergent_ff_tiles', bursts, n_seg), build)(
-                temp_t, a_t, tss_t, seg, jt, it, kt, self.time, freqs))
-            return ints[0] if scalar else ints
+            return (self._jitted(('emergent_ff_tiles', bursts, n_seg), build),
+                    (temp_t, a_t, tss_t, seg, jt, it, kt))
 
         def build():
             def kernel(f, a, t, freqs):
@@ -1592,10 +1600,8 @@ class JetModel:
                 return scan(src, dtau) * 1e-7 * 1e4
             return kernel
 
-        a = self._rt_static()[0]
-        ints = np.asarray(self._jitted('emergent_ff', build)(
-            f, a, self.time, freqs))
-        return ints[0] if scalar else ints
+        return (self._jitted('emergent_ff', build),
+                (self._ensure_fields(), self._rt_static()[0]))
 
     # ------------------------------------------------------------------ #
     # FITS output (classes.py:1543-1652)

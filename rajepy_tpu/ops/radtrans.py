@@ -270,16 +270,18 @@ def tau_rrl_tile_factors(coeffs: RRLCoeffs, freqs, temp_t, n_es_t, vy_t,
 
 
 def tau_rrl_maps_tiles(coeffs: RRLCoeffs, freqs, temp_t, n_es_t, vy_t,
-                       ds_t, inside_t, seg, nx: int, nz: int):
+                       ds_t, inside_t, seg, nx: int, nz: int,
+                       partials=None):
     """Collapsed RRL optical-depth maps (n_chan, nx, nz) from COMPACTED
     jet-occupied field tiles (ops.tiles.gather_tiles): the
     channel-independent opacity factors are evaluated only on the few
     per cent of the grid the jet occupies, the Voigt sums run per tile
     (ops.rrl_tiles), and the maps are reassembled with a segment-sum over
-    (x, z)-tile ids."""
+    (x, z)-tile ids.  ``partials`` computes the per-tile Voigt sums
+    (default: ops.rrl_tiles.rrl_tile_partials, the platform's choice)."""
     from .rrl_tiles import rrl_tile_partials
     from .tiles import segment_tile_maps
-    parts = rrl_tile_partials(
+    parts = (partials or rrl_tile_partials)(
         *tau_rrl_tile_factors(coeffs, freqs, temp_t, n_es_t, vy_t, ds_t,
                               inside_t), nu0=float(coeffs.nu0))
     return segment_tile_maps(parts, seg, nx, nz)

@@ -51,7 +51,7 @@ def test_rrl_check(smoke, jm32, wide):
     r = smoke.rrl_check(jm32, freqs, interpret=True, n_rep=1)
     assert r['kernel_err'] < smoke.RRL_TOL
     assert r['xla_err'] < smoke.RRL_TOL
-    assert r['kernel_s'] > 0 and r['xla_s'] > 0
+    assert r['kernel_s']['median'] > 0 and r['xla_s']['median'] > 0
 
 
 def test_epoch_check(smoke, jm32):
@@ -65,7 +65,8 @@ def test_emergent_check(smoke, jm32):
     m = smoke.emergent_check(jm32, np.geomspace(3e8, 3e11, 3), n_rep=1)
     assert m['tiles_err'] < smoke.EMERGENT_TOL
     assert m['full_err'] < smoke.EMERGENT_TOL
-    assert jm32._tiled()     # the full-cube override did not stick
+    assert m['tiles_s']['min'] <= m['tiles_s']['median'] <= \
+        m['tiles_s']['max']
 
 
 def test_emergent_oracle_matches_f64_model(smoke, model_params):
@@ -108,3 +109,29 @@ def test_map_err_and_gate(smoke):
     smoke.gate('x', 1e-5, 1e-5)
     with pytest.raises(AssertionError):
         smoke.gate('x', 2e-5, 1e-5)
+
+
+def test_timed_reports_spread(smoke):
+    out, s = smoke.timed(lambda x: x + 1.0, jnp.ones(4), n_rep=3)
+    np.testing.assert_array_equal(out, 2.0)
+    assert 0 < s['min'] <= s['median'] <= s['max']
+    assert smoke.fmt_ms(s).endswith(']')
+
+
+def _errs(clean, dirty=0.0):
+    return {'fits_flux': [0.0, 2e-7], 'rrl dirty': [dirty, 0.0],
+            'rrl clean_image': [0.0, clean]}
+
+
+@pytest.mark.parametrize("fanned, repeat, ok", [
+    (_errs(3e-3), _errs(1e-3), True),      # CLEAN within 10x the repeat
+    (_errs(3e-3), _errs(1e-4), False),     # CLEAN beyond 10x the repeat
+    (_errs(3e-3), _errs(0.0), False),      # exact repeat: MULTI_RTOL
+    (_errs(1e-3, dirty=2e-5), _errs(1e-3), False),   # dirty is linear
+])
+def test_multi_gates(smoke, fanned, repeat, ok):
+    if ok:
+        smoke.multi_gates(fanned, repeat)
+    else:
+        with pytest.raises(AssertionError):
+            smoke.multi_gates(fanned, repeat)
